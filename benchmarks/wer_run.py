@@ -22,7 +22,7 @@ sentence HMMs against the *executed reference implementation*
 (``StatisticalModel/LHMM.py``), the ``tests/test_reference_parity.py``
 machinery applied to real trained models.
 
-Writes ``WER_r03.json``.  Run on the TPU chip:  ``python
+Writes a JSON record (``--out``).  Run on the GPU:  ``python
 benchmarks/wer_run.py``  (a CPU run works too, slower).
 """
 
@@ -604,9 +604,7 @@ def main():
                     "ser": round(r.ser, 4),
                     "wer_delta_vs_closed": round(r.wer - res.wer, 4),
                     # first batch compiles inside the timed loop — WER
-                    # is the point here; clean throughput at these
-                    # scales lives in decode_fullvocab.json /
-                    # pruned_trained.json
+                    # is the point here, not throughput
                     "decode_seconds_incl_compile": round(dt, 1),
                 }
                 fv_rows.append(row)

@@ -1,4 +1,4 @@
-"""poccala_tpu — a TPU-native (JAX/XLA/Pallas) GMM-HMM ASR framework.
+"""poccala_tpu — an accelerator-native (JAX/XLA) GMM-HMM ASR framework.
 
 A from-scratch rebuild of the capability surface of the reference Python
 system Byshx/Poccala (surveyed in SURVEY.md): MFCC+VAD feature frontend,
@@ -6,10 +6,10 @@ diagonal-GMM acoustic scoring, log-space HMM forward/backward (Baum-Welch)
 with flat-start and Viterbi-realignment training schemes, k-means/SMEM
 mixture management, and Viterbi/beam decoding over a Mandarin pinyin
 pronunciation lexicon — all as batched, jit-compiled scan/matmul programs
-sharded over TPU meshes.
+sharded over device meshes (one or four GPUs).
 
 Design stance (SURVEY.md §7): the reference's object-per-unit,
-file-per-parameter design inverts on TPU into one batched *senone bank*
+file-per-parameter design inverts on an accelerator into one batched *senone bank*
 pytree; per-unit Python loops become batched axes; file-based accumulator
 reduction becomes `psum` over the device mesh.
 """

@@ -72,6 +72,22 @@ def _maybe_mesh(cfg, args):
     return mesh
 
 
+def wav_features(cfg, fe, path: str) -> np.ndarray:
+    """One WAV -> its decode features ``[T, D]``: the serving pipeline
+    of ``Decoder.main`` (``Decoder.py:190-218``) — load, preprocess,
+    MFCC, then the VAD-kept frames when ``frontend.vad``."""
+    from poccala_tpu.io import wav as wav_io
+    from poccala_tpu.ops import vad as vad_ops
+
+    data, _ = wav_io.load_wav(path)
+    sig = wav_io.preprocess_signal(
+        data, drop_zeros=cfg.frontend.reference_quirks)
+    feats, mask = fe.mfcc(sig)
+    keep = vad_ops.vad_mask(feats, mask) if cfg.frontend.vad else mask
+    packed, n = vad_ops.apply_mask(feats, keep)
+    return np.asarray(packed)[: int(n)]
+
+
 def _load_decode_graph(args, inv, bank):
     """Lexicon pickle -> FlatLexicon; with ``--cd`` the same pickle
     compiles into the context-dependent graph (arcs keyed on
@@ -142,6 +158,7 @@ def cmd_train(args):
     if args.history:
         with open(args.history, "w") as f:
             json.dump(tr.history, f, indent=2)
+    return tr
 
 
 def cmd_align(args):
@@ -175,9 +192,6 @@ def cmd_decode(args):
         from poccala_tpu.decoder import BeamDecoder
     else:
         from poccala_tpu.decoder.vector import VectorBeamDecoder as BeamDecoder
-    from poccala_tpu.io import wav as wav_io
-    from poccala_tpu.io.corpus import UnitInventory
-    from poccala_tpu.ops import vad as vad_ops
     from poccala_tpu.ops.frontend import Frontend
     from poccala_tpu.train import checkpoint as ckpt
 
@@ -203,32 +217,21 @@ def cmd_decode(args):
                       normalizer=cfg.model.gaussian_normalizer, **kw)
     mesh = _maybe_mesh(cfg, args)
     fe = Frontend(cfg.frontend)
-    packs = []
-    for path in args.wavs:
-        data, _ = wav_io.load_wav(path)
-        sig = wav_io.preprocess_signal(
-            data, drop_zeros=cfg.frontend.reference_quirks)
-        feats, mask = fe.mfcc(sig)
-        if cfg.frontend.vad:
-            keep = vad_ops.vad_mask(feats, mask)
-        else:
-            keep = mask
-        packed, n = vad_ops.apply_mask(feats, keep)
-        packs.append((np.asarray(packed), int(n)))
+    packs = [wav_features(cfg, fe, path) for path in args.wavs]
     if args.decoder == "simple":
-        outs = [dec.decode(p[:n]) for p, n in packs]
+        outs = [dec.decode(p) for p in packs]
     else:
         # one batched decode (sharded over the mesh's data axis when
         # --distributed, device tier only)
         if mesh is not None and args.decoder != "device":
             raise SystemExit("--distributed requires --decoder device")
-        t_max = max(n for _, n in packs)
-        feats_b = np.zeros((len(packs), t_max, packs[0][0].shape[1]),
+        t_max = max(len(p) for p in packs)
+        feats_b = np.zeros((len(packs), t_max, packs[0].shape[1]),
                            np.float32)
         nf = np.zeros(len(packs), np.int32)
-        for i, (p, n) in enumerate(packs):
-            feats_b[i, :n] = p[:n]
-            nf[i] = n
+        for i, p in enumerate(packs):
+            feats_b[i, :len(p)] = p
+            nf[i] = len(p)
         kwargs = {"mesh": mesh} if mesh is not None else {}
         outs = dec.decode_batch(feats_b, nf, return_nbest=5, **kwargs)
     if args.rescore_lm:
@@ -386,8 +389,6 @@ def cmd_listen(args):
     import numpy as np
 
     from poccala_tpu.decoder.device import DeviceBeamDecoder
-    from poccala_tpu.io import wav as wav_io
-    from poccala_tpu.ops import vad as vad_ops
     from poccala_tpu.ops.frontend import Frontend
     from poccala_tpu.train import checkpoint as ckpt
 
@@ -410,7 +411,7 @@ def cmd_listen(args):
     fe = Frontend(cfg.frontend)
 
     if args.wav:
-        data, _ = wav_io.load_wav(args.wav)
+        path = args.wav
     else:
         import tempfile
 
@@ -420,16 +421,7 @@ def cmd_listen(args):
         print(f"recording {args.seconds:.1f}s ...", file=sys.stderr)
         audio_device.record(args.seconds, path,
                             rate=cfg.frontend.sample_rate)
-        data, _ = wav_io.load_wav(path)
-    sig = wav_io.preprocess_signal(
-        data, drop_zeros=cfg.frontend.reference_quirks)
-    feats, mask = fe.mfcc(sig)
-    if cfg.frontend.vad:
-        keep = vad_ops.vad_mask(feats, mask)
-    else:
-        keep = mask
-    packed, n = vad_ops.apply_mask(feats, keep)
-    packed = np.asarray(packed)[: int(n)]
+    packed = wav_features(cfg, fe, path)
 
     chunk = max(int(args.chunk_frames), 1)
     st = dec.stream_init(batch=1, max_frames=len(packed))
@@ -455,8 +447,6 @@ def cmd_serve(args):
     per WAV in input order.  The pipelined form of the reference's
     synchronous serve loop (``Decoder.py:190-218``)."""
     from poccala_tpu.decoder.device import DeviceBeamDecoder
-    from poccala_tpu.io import wav as wav_io
-    from poccala_tpu.ops import vad as vad_ops
     from poccala_tpu.ops.frontend import Frontend
     from poccala_tpu.serve import DecodeService
     from poccala_tpu.train import checkpoint as ckpt
@@ -486,15 +476,6 @@ def cmd_serve(args):
     else:
         paths = [line.strip() for line in sys.stdin if line.strip()]
 
-    def features(path):
-        data, _ = wav_io.load_wav(path)
-        sig = wav_io.preprocess_signal(
-            data, drop_zeros=cfg.frontend.reference_quirks)
-        feats, mask = fe.mfcc(sig)
-        keep = vad_ops.vad_mask(feats, mask) if cfg.frontend.vad else mask
-        packed, n = vad_ops.apply_mask(feats, keep)
-        return np.asarray(packed)[: int(n)]
-
     with DecodeService(dec, batch_size=args.batch_size,
                        frame_bucket=args.frame_bucket,
                        max_wait_s=args.max_wait_ms / 1e3,
@@ -507,7 +488,7 @@ def cmd_serve(args):
         futs = []
         for lo in range(0, len(paths), args.batch_size):
             chunk = paths[lo: lo + args.batch_size]
-            feats = [features(p) for p in chunk]
+            feats = [wav_features(cfg, fe, p) for p in chunk]
             futs.extend(
                 (p, svc.submit(f)) for p, f in zip(chunk, feats))
         for path, fut in futs:
@@ -732,8 +713,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Run one subcommand; returns what it returns (the trainer for
+    ``train``, so an in-process caller can inspect the bank)."""
+    from poccala_tpu.utils.compile_cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    enable_compile_cache()
+    return args.fn(args)
 
 
 if __name__ == "__main__":

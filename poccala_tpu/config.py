@@ -40,20 +40,15 @@ class FrontendConfig:
     frame_time_s: float = 0.025     # 25 ms frames (AudioProcessing.py:201)
     frame_overlap: float = 0.5      # 50% hop    (AudioProcessing.py:201)
     nfft: int = 512                 # rFFT size  (AudioProcessing.py:249)
-    # compute |rFFT| as one concatenated MXU matmul against the DFT
-    # basis instead of the XLA FFT op (~2.6x faster on TPU for these
-    # sizes, matches rfft to ~1e-4 relative).  (A Pallas frontend
-    # kernel was retired in r05 as a measured negative result — the
-    # XLA matmul path beat it at every production shape; see ROADMAP.)
+    # compute |rFFT| as one concatenated matmul against the DFT basis
+    # instead of the XLA FFT op (matches rfft to ~1e-4 relative; chosen
+    # for the previous accelerator, not yet measured on the H100)
     matmul_dft: bool = True
-    # matmul precision for the frontend dots when matmul_dft
-    # (benchmarks/frontend_opt.json, on-chip): 'highest' = 6-pass
-    # f32-exact (default — the only mode inside the 3e-4 feature-
-    # accuracy bar); 'high' = bf16_3x, 1.13-1.23x the pipeline but
-    # 0.025 abs max feature error (high-frequency DFT bins cancel, and
-    # log amplifies their relative error) — acceptable only for
-    # throughput-first serving; 'default' = one bf16 pass, 0.28-0.38
-    # abs (known-bad control, never for training/parity)
+    # matmul precision for the frontend dots when matmul_dft: 'highest'
+    # = f32-exact (default — inside the 3e-4 feature-accuracy bar that
+    # chip_smoke.py checks); 'high' and 'default' are reduced-precision
+    # passes whose error the cancelling high-frequency DFT bins and the
+    # log amplify (never for training/parity)
     dot_precision: str = "highest"
     pre_emphasis: float = 0.98      # (AudioProcessing.py:184)
     hamming_alpha: float = 0.46     # (AudioProcessing.py:228)
@@ -162,14 +157,11 @@ class ModelConfig:
     count_final_exit: bool = True
     bw_inner_iters: int = 1
     # GMM-scoring matmul operand dtype.  'float32' (default): fp32
-    # operands with HIGHEST-precision dots (correctness requirement —
-    # TPU f32 dots otherwise run one bf16 pass, catastrophic with
-    # floor-level 1/σ² coefficients; see ops/gmm_score.py).
-    # 'bfloat16': centered bf16 operands, one MXU pass — measured
-    # 1.9-2.0x scoring TFLOP/s vs the f32 path at config-3/4 shapes
-    # with 0.007-nat mean drift and zero Viterbi flips
-    # (benchmarks/bf16_study.json); the whole-pipeline gain is small
-    # because scoring is not the EM bottleneck at these scales.
+    # operands with HIGHEST-precision dots (correctness requirement — a
+    # reduced-precision pass is catastrophic with floor-level 1/σ²
+    # coefficients; see ops/gmm_score.py).  'bfloat16': centered bf16
+    # operands with fp32 accumulation (tests/test_bf16_scoring.py pins
+    # its score drift; its speed is not yet measured on the H100).
     score_dtype: str = "float32"
 
     @property
@@ -189,7 +181,7 @@ class TrainConfig:
     # 'pinyin': labels are toned pinyin syllables (THCHS-30 style),
     # converted to units via the G2P transforms
     label_format: str = "units" 
-    batch_size: int = 32            # utterances per device batch (new: TPU batching)
+    batch_size: int = 32            # utterances per device batch (new: batching)
     max_frames: int = 512           # per-utterance frame budget (padded/bucketed)
     max_label_len: int = 32         # per-utterance unit budget (padded)
     epochs: int = 1
@@ -216,20 +208,20 @@ class TrainConfig:
 @dataclass
 class DecoderConfig:
     """Decode-time search knobs (the reference's beam pruning,
-    ``Decoder.py:34,159-167``, in its TPU block-pruned form — see
+    ``Decoder.py:34,159-167``, in its block-pruned form — see
     :class:`poccala_tpu.decoder.device.DeviceBeamDecoder`)."""
 
     beam: float = 0.85              # host-tier keep fraction (Decoder.py:34)
     # Device tier block pruning: per frame only the ``active_blocks``
     # best-scoring blocks of ``block_size`` DFS-contiguous nodes run the
-    # banded advance; 0 = exact dense search (default).  Worth enabling
-    # for 10⁴⁺-node lexicons (benchmarks/scaling.json pruned rows).
+    # banded advance; 0 = exact dense search (default).  Meant for
+    # 10⁴⁺-node lexicons (its speed is not yet measured on the H100).
     block_size: int = 1024
     active_blocks: int = 0
     # Sticky block selection (nats): an active block keeps its slot
     # unless a challenger beats it by this margin.  MEASURED NEGATIVE
-    # on the trained-bank 37.5k-word sweep (benchmarks/
-    # pruned_trained.json: +1-2pp WER at every width at 8 nats) — the
+    # on the trained-bank 37.5k-word sweep (record in commit a016147:
+    # +1-2pp WER at every width at 8 nats) — the
     # pruning collapse is genuine search-width starvation, not
     # selection thrash; widening active_blocks is what recovers
     # accuracy (8->16->32 blocks: +24.2 -> +11.1 -> +3.8pp vs exact).

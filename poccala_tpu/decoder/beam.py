@@ -29,7 +29,7 @@ module keeps the reference's architecture and finishes the algorithm:
   ``Decoder.py:63-88``).
 
 Compute split: GMM scoring of all frames against the whole senone bank —
-the FLOPs — runs once on TPU as a batched matmul
+the FLOPs — runs once on the device as a batched matmul
 (:func:`poccala_tpu.ops.gmm_score.gmm_log_scores`); the token bookkeeping
 (small, dynamic, data-dependent) runs on the host over the precomputed
 score matrix.  Token state is fixed-shape arrays, so a future all-device
@@ -119,13 +119,10 @@ class BeamDecoder:
 
     # ------------------------------------------------------------------
     def _frame_scores(self, feats) -> np.ndarray:
-        """All-frames × all-senones GMM scores on device (Pallas fused
-        kernel on TPU, XLA elsewhere)."""
+        """All-frames × all-senones GMM scores on the device."""
         import jax.numpy as jnp
 
-        from poccala_tpu.ops.pallas.gmm_score_tpu import gmm_log_scores_fast
-
-        scores = gmm_log_scores_fast(
+        scores = gmm_log_scores(
             jnp.asarray(feats), self.bank.means, self.bank.log_var,
             self.bank.log_w, normalizer=self.normalizer,
             score_dtype=self.score_dtype,

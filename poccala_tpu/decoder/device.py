@@ -4,9 +4,9 @@ Third tier of the decoder stack (dict reference → vectorized host →
 device).  Earlier rounds ran a token machine (fixed-capacity token
 arrays + per-frame sort/dedup/top-k) mirroring the host tiers; profiling
 showed the per-frame pool machinery (concats, gathers, a [P]-wide sort)
-dominated decode time while the arrays involved were tiny — exactly the
-shape of work TPUs are worst at.  This version replaces tokens with the
-TPU-idiomatic dense form: **every lexicon node is always live**, and the
+dominated decode time while the arrays involved were tiny (measured on
+the previous accelerator).  This version replaces tokens with a
+dense form: **every lexicon node is always live**, and the
 per-frame update is a handful of fused elementwise/gather ops over
 ``[n_nodes, Ns]`` arrays — no sort, no top-k, no dynamic pool, and no
 beam approximation at all (the search is exact Viterbi over the
@@ -88,7 +88,7 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         the rest are pruned to log-zero and revive only through word
         re-entry / parent flow (entry bookkeeping stays global and
         cheap).  ``None`` (default) keeps the exact dense search.  This
-        is the TPU form of the reference's beam pruning
+        is the block form of the reference's beam pruning
         (``Decoder.py:34``, keep-fraction beam): per-frame cost becomes
         ~O(active_blocks·block_size) instead of O(n_nodes) for the
         dominant [*, Ns]-array work — for 10⁴–10⁵-node lexicons.
@@ -97,9 +97,9 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         currently-active blocks in the per-frame block selection (a
         challenger must beat an active block by the margin to displace
         it).  Tested against the trained-bank pruning collapse
-        (``WER_r05_cd.json`` fullvocab rows: (256, 8) costs +58pp at
-        the 37.5k-word table) and MEASURED NEGATIVE
-        (``benchmarks/pruned_trained.json``: +1-2pp WER over the
+        (record in commit a016147: (256, 8) costs +58pp at the
+        37.5k-word table) and MEASURED NEGATIVE (same record: +1-2pp
+        WER over the
         non-sticky selection at every width) — the collapse is genuine
         width starvation; widening ``active_blocks`` is what recovers
         accuracy.  Default 0 (off)."""
@@ -209,9 +209,9 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         self._j_bands = jnp.asarray(bands)       # [N_p, Ns, W_eff]
         self._j_senone = jnp.asarray(senone)     # [N_p, Ns]
         self._j_word = jnp.asarray(word_tab)     # [N_p, Wt]
-        # word-emission slots: the static (node, word) pairs — TPU
-        # gathers with static indices are fast, dynamic point gathers
-        # scalarize, so emissions are computed per-slot
+        # word-emission slots: the static (node, word) pairs, so
+        # emissions are static-index gathers per slot (chosen for the
+        # previous accelerator, where dynamic point gathers were slow)
         node_slot, word_slot = np.nonzero(word_tab >= 0)
         if len(node_slot) == 0:
             node_slot, word_slot = np.zeros(1, np.int64), np.zeros(1, np.int64)
@@ -359,10 +359,11 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         packs (traceback ptr + 1, last word) as ``(h+1)*(V+1) + l`` —
         one int32 propagated along the Viterbi path instead of two.
 
-        TPU formulation notes (measured on-chip): dynamic point gathers
-        and minor-axis ``take_along_axis`` scalarize (≈ms per frame even
-        at [125, 8]); static-index gathers, shifted ``where`` selects
-        and scalar picks after an ``argmax``/``top_k`` are fast.  Hence
+        Formulation notes (chosen for the previous accelerator, where
+        dynamic point gathers and minor-axis ``take_along_axis`` were
+        slow; not yet measured on the H100): static-index gathers,
+        shifted ``where`` selects and scalar picks after an
+        ``argmax``/``top_k`` instead.  Hence
         (a) ctx propagates via the same shifted-compare loop as the
         scores, (b) emissions are evaluated on the static (node, word)
         slot arrays, and (c) the bigram LM is applied to the top-``R``
@@ -476,11 +477,11 @@ class DeviceBeamDecoder(VectorBeamDecoder):
             **compact carry**: only the K active blocks' token scores
             live in the scan carry ([K, blk, Ns] instead of [N, Ns]),
             plus the global entry row and its context ([N]).  The v1
-            form kept full-size deltas/ctx and masked — measured SLOWER
-            than the exact search at 21.6k nodes (benchmarks/
-            decode_fullvocab.json: 363 vs 476 audio-s/s) because every
-            frame still paid O(N*Ns) carry reads/writes plus full-size
-            lookahead and write-back scatters.  Here the only remaining
+            form kept full-size deltas/ctx and masked — slower than the
+            exact search at 21.6k nodes because every frame still paid
+            O(N*Ns) carry reads/writes plus full-size
+            lookahead and write-back scatters (measured on the previous
+            accelerator).  Here the only remaining
             O(N*Ns) term is the per-frame acoustic-score gather feeding
             the block-selection lookahead (fused by XLA into its [N]
             reduce); everything else is O(K*blk*Ns + N).
@@ -707,9 +708,9 @@ class DeviceBeamDecoder(VectorBeamDecoder):
             def one_utt(scores_u, n_frames_u):
                 tis = jnp.arange(t_pad, dtype=jnp.int32)
                 actives = tis < n_frames_u
-                # unroll=2: large lexicons are bandwidth-bound on the
-                # [N, Ns] carry; two fused body copies halve the
-                # per-frame carry round trips through HBM
+                # unroll=2: two fused body copies halve the per-frame
+                # round trips of the [N, Ns] carry through device memory
+                # (chosen for the previous accelerator)
                 carry, (tbp, tbw) = jax.lax.scan(
                     step, seed(), (scores_u, tis, actives), unroll=2
                 )
@@ -722,10 +723,10 @@ class DeviceBeamDecoder(VectorBeamDecoder):
     def _scores_in_graph(self, feats_b):
         """All-frames × all-senones GMM scores, traced into the decode
         program (one jit: scoring + scan + finalize)."""
-        from poccala_tpu.ops.pallas.gmm_score_tpu import gmm_log_scores_fast
+        from poccala_tpu.ops.gmm_score import gmm_log_scores
 
         b, t, d = feats_b.shape
-        s = gmm_log_scores_fast(
+        s = gmm_log_scores(
             feats_b.reshape(b * t, d), self.bank.means, self.bank.log_var,
             self.bank.log_w, normalizer=self.normalizer,
             score_dtype=self.score_dtype,
@@ -749,12 +750,8 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         has zero collectives; tables and bank are closed over and
         replicated."""
         import jax
+        from jax import shard_map as _shard_map
         from jax.sharding import PartitionSpec as P
-
-        try:
-            from jax import shard_map as _shard_map
-        except ImportError:  # pragma: no cover
-            from jax.experimental.shard_map import shard_map as _shard_map
 
         cache = getattr(self, "_sharded_cache", None)
         if cache is None:

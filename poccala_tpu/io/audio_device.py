@@ -2,7 +2,7 @@
 
 Replaces ``AudioProcessing.play`` / ``AudioProcessing.record``
 (``StatisticalModel/AudioProcessing.py:44-97``).  pyaudio is an optional
-dependency (absent on TPU hosts); the functions degrade to a clear
+dependency (absent on accelerator hosts); the functions degrade to a clear
 error.  The stderr-suppression context manager mirrors the reference's
 ``ignore_stderr`` (``AudioProcessing.py:23-34``) since ALSA spews
 warnings on open.

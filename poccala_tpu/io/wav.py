@@ -3,8 +3,8 @@
 Replaces the reference's wave/pyaudio loader
 (``StatisticalModel/AudioProcessing.py:147-181``) with a numpy-only
 implementation (no audio-device dependency; playback/record from the
-reference's ``AudioProcessing.play/record`` are out of scope on a TPU
-host — the serving input is a file/stream of samples).
+reference's ``AudioProcessing.play/record`` are out of scope on an
+accelerator host — the serving input is a file/stream of samples).
 
 Reference load semantics reproduced here (both are flag-gated quirks,
 SURVEY.md §7 "hard parts" (b)):

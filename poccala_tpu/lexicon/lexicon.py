@@ -6,7 +6,7 @@ phoneme, deeper levels by full ``"initial,final+tone"`` syllables, with
 ``'word'`` leaf lists — built from word lists via the G2P, pickled for
 reuse.
 
-For TPU decoding the tree is additionally flattened
+For device decoding the tree is additionally flattened
 (:class:`FlatLexicon`) into integer arrays (SURVEY.md §7 step 7): CSR
 child lists, per-node syllable unit pairs (ids into the acoustic unit
 inventory), and per-node word lists — so the beam decoder indexes arcs

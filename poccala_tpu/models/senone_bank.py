@@ -3,7 +3,7 @@
 Design inversion (SURVEY.md §7): the reference holds one Python object
 tree per unit — an ``LHMM`` wrapping per-state ``Clustering.GMM``
 instances, each persisting its own ``.npy`` files
-(``AcousticModel.py:164-226``).  On TPU all of it becomes a single
+(``AcousticModel.py:164-226``).  Here all of it becomes a single
 batched pytree so every per-unit loop is a batched axis:
 
 * ``means[S, M, D]``, ``log_var[S, M, D]``, ``log_w[S, M]`` — the GMMs of

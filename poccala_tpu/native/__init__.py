@@ -8,29 +8,39 @@ unavailable.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
-import sys
 
 import numpy as np
 
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_SRC_DIR, "wavio.cpp")
 # built lib lives in a plain subdirectory so package walkers don't try
 # to import the ctypes .so as a Python extension module
 _BUILD_DIR = os.path.join(_SRC_DIR, "build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libpoccala_native.so")
 _lib = None
 _build_error: str | None = None
 
 
+def lib_path() -> str:
+    """Build target keyed on a hash of the committed source: a library
+    built from other source (or on another machine from a different
+    revision) is never picked up."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libpoccala_native_{digest}.so")
+
+
 def _build() -> str | None:
-    src = os.path.join(_SRC_DIR, "wavio.cpp")
+    path = lib_path()
+    if os.path.exists(path):
+        return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    if os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(src):
-        return _LIB_PATH
+    tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        src, "-o", _LIB_PATH,
+        _SRC, "-o", tmp,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
@@ -38,7 +48,8 @@ def _build() -> str | None:
         global _build_error
         _build_error = getattr(e, "stderr", str(e)) or str(e)
         return None
-    return _LIB_PATH
+    os.replace(tmp, path)     # atomic: concurrent builders never see half
+    return path
 
 
 def get_lib():

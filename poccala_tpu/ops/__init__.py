@@ -1,4 +1,4 @@
-"""Compute ops tier: batched, jit-compiled TPU kernels.
+"""Compute ops tier: batched, jit-compiled device kernels.
 
 Each module replaces one of the reference's scalar-Python hot loops
 (SURVEY.md §2 "native components"): ``frontend`` (MFCC/STFT), ``vad``,

@@ -7,7 +7,7 @@ and its helpers ``expectation`` (``:583-599``), ``maximization``
 The reference runs EM per frame in log domain with a ``+100`` bias so
 means stay positive under the log (``Clustering.py:103, 628-633``);
 SURVEY.md §7 hard part (c) recommends scaled linear-domain statistics on
-TPU instead — responsibilities are posteriors in [0, 1], so γ-weighted
+the device instead — responsibilities are posteriors in [0, 1], so γ-weighted
 sums in float32 are well conditioned without bias tricks.  Covariances
 are computed about the *new* mean, matching ``Clustering.py:638``, and
 floored at ``c_covariance`` (``Clustering.py:641-645``).

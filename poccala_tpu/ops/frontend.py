@@ -4,9 +4,8 @@ Replaces the reference's per-stage Python/NumPy pipeline
 (``StatisticalModel/AudioProcessing.py:183-448``): pre-emphasis →
 framing → windowing → |rFFT| → mel filterbank (+frame energy) → DCT →
 energy-c0 → Δ/ΔΔ.  The scalar triple-loop DCT (``AudioProcessing.py:364-369``)
-and the per-frame window loop (``:243-245``) become two matmuls that XLA
-maps onto the MXU; everything else fuses into the surrounding elementwise
-graph.  Ragged utterance lengths are handled with padding + frame masks
+and the per-frame window loop (``:243-245``) become matmuls; everything
+else fuses into the surrounding elementwise graph.  Ragged utterance lengths are handled with padding + frame masks
 instead of Python-list raggedness (SURVEY.md §7 "hard parts" (a)).
 
 Reference-numerics quirks are flag-gated via ``FrontendConfig.reference_quirks``
@@ -137,9 +136,9 @@ class Frontend:
             # DFT basis restricted to the first frame_size input rows
             # (the rFFT zero-pads frames to nfft).  cos and sin are
             # CONCATENATED into one [frame_size, 2K] operand so the
-            # spectrum needs a single MXU dot per batch instead of two
+            # spectrum needs a single dot per batch instead of two
             # half-width ones (same FLOPs, one pass over the frames
-            # operand -> less HBM traffic on the bandwidth-bound side).
+            # operand).
             k = (
                 np.arange(cfg.nfft)[:, None]
                 * np.arange(cfg.nfft // 2 + 1)[None, :]
@@ -207,14 +206,13 @@ class Frontend:
             win = frames * self._window[None, :]
 
         # |rFFT| (AudioProcessing.py:248-264); as one concatenated
-        # [T, frame] @ [frame, 2K] DFT matmul on the MXU when
-        # cfg.matmul_dft (identical to ~1e-4 relative)
+        # [T, frame] @ [frame, 2K] DFT matmul when cfg.matmul_dft
+        # (identical to ~1e-4 relative)
         if cfg.matmul_dft:
-            # dot_precision: TPU f32 dots default to ONE bf16 MXU pass,
-            # which costs ~0.15 absolute in the final log-cepstra.
-            # 'highest' (6-pass f32) is exact; 'high' (bf16_3x) is
-            # ~2x the matmul rate and measured oracle-tight at these
-            # magnitudes (benchmarks/frontend_opt.py decides defaults)
+            # dot_precision: the DFT bins cancel, and the log amplifies
+            # their relative error, so a reduced-precision pass moves
+            # the log-cepstra visibly; 'highest' is f32-exact and the
+            # default (FrontendConfig.dot_precision)
             prec = _PRECISION[cfg.dot_precision]
             k = self._dft_cos.shape[1]
             cs = jnp.dot(win, self._dft_cs,
@@ -244,7 +242,7 @@ class Frontend:
         else:
             energy = jnp.sum(spec * spec, axis=-1)
 
-        # Mel filterbank + log + DCT: two MXU matmuls
+        # Mel filterbank + log + DCT: two matmuls
         prec_small = _PRECISION[cfg.dot_precision] if cfg.matmul_dft \
             else jax.lax.Precision.HIGHEST
         fbank = jnp.dot(spec, self._fbank, preferred_element_type=jnp.float32,
@@ -332,13 +330,10 @@ class Frontend:
         """Traceable batched pipeline (embed inside an outer jit).
         Returns ``([B, T, D] feats, [B, T] mask)``.
 
-        A fused Pallas frontend kernel existed through round 4 and was
-        RETIRED as a measured negative result (ROADMAP): XLA's single
-        [B*T, frame] @ [frame, 2K] DFT matmul plus elementwise fusion
-        beat the kernel's per-tile grid at every production shape
-        (config 2: 5.26 vs 6.23 ms; config 3: 5.30 vs 5.91 ms,
-        benchmarks/scaling.json r04), and it only won at the toy
-        config.  The XLA path IS the fast path.
+        The frontend is plain XLA: one [B*T, frame] @ [frame, 2K] DFT
+        matmul plus elementwise fusion (an earlier fused Pallas kernel
+        lost to it on the previous accelerator and was removed; not yet
+        measured on the H100).
         """
         signals = jnp.asarray(signals, dtype=jnp.float32)
         n_samples = jnp.asarray(n_samples)
@@ -353,13 +348,17 @@ class Frontend:
         # first/last rows.  The dynamic clip at t_true-1 is realized by
         # first replicating the last *true* row into the padding, after
         # which the static end-of-buffer edge rows are already correct.
-        # (A [T, 2n+1, D] gather here is ~10x slower on TPU, and shifted
-        # adds on the lane-padded [T, 13] layout cost ~2 ms/batch.)
+        # (Chosen over a [T, 2n+1, D] gather and over shifted adds for
+        # the previous accelerator; not yet measured on the H100.)
         last = jnp.take(feat, t_true - 1, axis=0)
         valid = jnp.arange(feat.shape[0])[:, None] < t_true
         f = jnp.where(valid, feat, last[None, :])
+        # HIGHEST: at default precision the GPU runs this in TF32, which
+        # moved the MFCC+Δ+ΔΔ features by 2.1e-3 against the 3e-4 bar
+        # (chip_smoke.py on an H100)
         return jnp.dot(jnp.asarray(self._delta_w(feat.shape[0])), f,
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
 
     @functools.lru_cache(maxsize=8)
     def _delta_w(self, t_pad: int) -> np.ndarray:

@@ -1,18 +1,18 @@
-"""Diagonal-GMM log-likelihood scoring as MXU matmuls.
+"""Diagonal-GMM log-likelihood scoring as matmuls.
 
 This is the reference's single hottest loop: ``cal_observation_pro``
 (``StatisticalModel/LHMM.py:163-187``) calls ``GMM.point``
 (``Clustering.py:740-767``) per frame × state × mixture, each a scalar
 ``gaussian_function`` (``util.py:20-31``).  O(T·S·M·D) scalar Python work.
 
-TPU-native form (SURVEY.md §7 step 3): expand the Mahalanobis term
+Batched-dense form (SURVEY.md §7 step 3): expand the Mahalanobis term
 
     Σ_d (x-μ)²/σ²  =  Σ_d x²·p  -  2·Σ_d x·(μp)  +  Σ_d μ²·p,   p = 1/σ²
 
 so all frames × all (state, mixture) pairs reduce to two matmuls
 ``[T,D]@[D,SM]`` plus a constant fold — exactly the batched-dense form
-BASELINE.json's north star names.  The mixture logsumexp runs on the VPU
-and fuses with the matmul epilogue.
+BASELINE.json's north star names.  The mixture logsumexp is an
+elementwise reduction that XLA fuses after the matmuls.
 
 The per-frame component log-probs (the reference's ``record`` cache,
 ``Clustering.py:94-95, 759-760``) are returned on demand for the
@@ -45,19 +45,16 @@ def gmm_component_logpdf(
     :param normalizer: 'textbook' (``-0.5Σ log σ²``) or 'reference'
         (``-0.5Σ σ²``, reproducing ``util.py:29``)
     :param score_dtype: 'float32' (default) — fp32 operands with
-        ``precision=HIGHEST`` dots, required for correctness: TPU f32
-        dots otherwise run one bf16 MXU pass whose error the
-        ``1/σ²``-scaled cancellation amplifies into huge score errors on
-        floor-variance senones.  'bfloat16' — centered bf16 operands
-        with one MXU pass and fp32 accumulation: **1.9–2.0× scoring
-        TFLOP/s vs the HIGHEST-precision f32 path** at config-3/4
-        shapes, with 0.007-nat mean / 0.09-nat max score drift and zero
-        Viterbi path flips on trained banks (benchmarks/bf16_study.json,
-        re-measured after the precision fix).  The centering (frames and
-        means shifted by the frame mean; the Mahalanobis form is
-        shift-invariant) is what keeps the ``x²``/``μ²`` operands small
-        enough for bf16's 8-bit mantissa — uncentered drift is an order
-        of magnitude larger (pinned in tests/test_bf16_scoring.py).
+        ``precision=HIGHEST`` dots, required for correctness: a
+        reduced-precision pass (bf16, or TF32 on a GPU) leaves an error
+        that the ``1/σ²``-scaled cancellation amplifies into huge score
+        errors on floor-variance senones.  'bfloat16' — centered bf16
+        operands with fp32 accumulation (its speed on the H100 is not
+        yet measured).  The centering (frames and means shifted by the
+        frame mean; the Mahalanobis form is shift-invariant) is what
+        keeps the ``x²``/``μ²`` operands small enough for bf16's 8-bit
+        mantissa — uncentered drift is an order of magnitude larger
+        (pinned in tests/test_bf16_scoring.py).
     :returns: ``[T, S, M]`` log N(x_t | μ_sm, σ²_sm)
     """
     s, m, d = means.shape
@@ -87,12 +84,13 @@ def gmm_component_logpdf(
     a1 = prec.reshape(s * m, d)  # x² coefficients
     a2 = (means * prec).reshape(s * m, d)  # cross-term coefficients
     mu2p = jnp.sum(means * means * prec, axis=-1)  # [S, M]
-    # precision=HIGHEST on the f32 path: TPU f32 dots default to one
-    # bf16 MXU pass; with floor-level variances (p = 1/σ² up to 1e6) the
-    # cancellation between the x²p and 2xμp terms amplifies the 8-bit
-    # mantissa error into thousands of nats (observed: +1e8 "logliks"
-    # on degenerate senones).  The bf16 option keeps single-pass
-    # semantics by construction.
+    # precision=HIGHEST on the f32 path: a default-precision f32 dot may
+    # run as one reduced-precision pass (TF32 on a GPU); with
+    # floor-level variances (p = 1/σ² up to 1e6) the cancellation
+    # between the x²p and 2xμp terms amplifies its mantissa error into
+    # thousands of nats (observed: +1e8 "logliks" on degenerate
+    # senones).  The bf16 option keeps single-pass semantics by
+    # construction.
     dot_prec = (jax.lax.Precision.HIGHEST if score_dtype == "float32"
                 else jax.lax.Precision.DEFAULT)
     quad = (

@@ -238,7 +238,7 @@ def forward_log_banded(band, log_pi, log_b, t_mask, w: int):
     """Banded forward: ``α'[j] = b[j] + LSE_k(α[j-k] + band[j-k, k])``.
 
     O(N·W) per step; W is static and small (``state_num - 1``), so the
-    k-loop unrolls at trace time into W shifted adds on the VPU.
+    k-loop unrolls at trace time into W shifted elementwise adds.
     """
     alpha0 = log_pi + log_b[0]
 

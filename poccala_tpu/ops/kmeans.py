@@ -1,4 +1,4 @@
-"""K-means clustering on TPU: batched Lloyd iterations + k-means++ seeding.
+"""K-means clustering on the device: batched Lloyd iterations + k-means++ seeding.
 
 Replaces ``Clustering.ClusterInitialization.kmeans``
 (``StatisticalModel/Clustering.py:838-1044``): the reference's Lloyd

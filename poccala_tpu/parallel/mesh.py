@@ -1,6 +1,6 @@
 """Device meshes and collective reductions for distributed training.
 
-TPU-native replacement for the reference's entire distributed layer
+Device-mesh replacement for the reference's entire distributed layer
 (SURVEY.md §2 "parallelism strategies" / "distributed communication
 backend"):
 
@@ -14,7 +14,7 @@ backend"):
 * the **file all-reduce** of EM accumulators (timestamped ``.npy`` files
   folded with ``matrix_log_sum_exp``, ``LHMM.py:211-290``,
   ``Clustering.py:257-367``) → one ``jax.lax.psum`` of the linear-domain
-  statistics pytree over ICI;
+  statistics pytree over the cards' interconnect (NVLink);
 * per-machine ``multiprocessing.Pool`` fan-out (``AcousticModel.py:708,
   790, 861``) → ``vmap`` inside each shard;
 * ``Pool.join()`` barriers (``AcousticModel.py:714, 797, 870``) → the
@@ -30,14 +30,10 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map as _shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from poccala_tpu.train import accumulators as acc
-
-try:  # jax >= 0.5 exposes shard_map at the top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
 
 
 def make_mesh(
@@ -215,7 +211,7 @@ def make_parallel_estep(
     Inside each shard: vmapped per-utterance embedded-BW statistics
     (:func:`poccala_tpu.train.accumulators.batch_stats`); across shards:
     ``psum`` over the ``data`` axis — the reference's accumulator-file
-    fold as a single ICI collective.
+    fold as a single collective.
 
     Padded utterances (``label_len == 0``) produce all-zero statistics:
     their sentence HMM has no emitting states, so every mask is False.

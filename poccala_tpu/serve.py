@@ -3,11 +3,11 @@
 The reference's serving story is a synchronous loop — record a window,
 run VAD, decode it, print, repeat (``Decoder.main``,
 ``/root/reference/Decoder.py:190-218``); every stage waits for every
-other stage.  On TPU that serializes host work (WAV load, frontend
-padding, id→word mapping) with device work (scoring + Viterbi scan),
-leaving the chip idle between batches.
+other stage.  On an accelerator that serializes host work (WAV load,
+frontend padding, id→word mapping) with device work (scoring + Viterbi
+scan), leaving the device idle between batches.
 
-:class:`DecodeService` is the TPU-native form: requests are queued,
+:class:`DecodeService` is the pipelined form: requests are queued,
 micro-batched, and decoded through the device decoder's
 ``decode_dispatch`` / ``decode_collect`` split
 (:meth:`poccala_tpu.decoder.device.DeviceBeamDecoder.decode_dispatch`).
@@ -19,7 +19,8 @@ overlap.  Batch filling is **adaptive**: while a batch is in flight,
 the gather window extends to the (EMA-estimated) device completion
 time — waiting then is free, and every request gathered replaces a
 dead padded slot, so effective capacity stays near the saturated rate
-even at low offered load (``benchmarks/serve_bench.json``).
+even at low offered load (measured on the previous accelerator; not yet
+on the H100).
 
 Shapes are kept jit-cache-friendly: batch size is fixed (short batches
 are padded with dead utterances, ``n_frames = 0``) and frame counts are
@@ -341,8 +342,8 @@ class DecodeService:
             # request gathered replaces a dead padded slot.  Without
             # this, low offered load degenerates to ~1-request batches
             # whose padding wastes (B-1)/B of device capacity and the
-            # queue backs up far below saturated throughput (measured:
-            # p99 3.0 s at 0.3x load, benchmarks/serve_bench.json r04)
+            # queue backs up far below saturated throughput (measured
+            # on the previous accelerator)
             until = None
             if pending is not None:
                 until = pending[2] + min(0.9 * self._ema_batch_s,

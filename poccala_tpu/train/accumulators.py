@@ -125,7 +125,7 @@ def utterance_stats(
     that axis), the bank's GMM tensors (``means/log_var/log_w``) are the
     **local senone shard** — ``[S_local, M, D]`` rows ``[s_offset,
     s_offset + S_local)`` of the global bank — while ``log_A`` /
-    ``senone_map`` stay replicated.  This is the TPU-native form of the
+    ``senone_map`` stay replicated.  This is the device-mesh form of the
     reference's multi-machine unit partitioning (``Controller.py:47-77``):
     each shard scores only the sentence states whose senone it owns, the
     shards exchange the tiny ``[T, N_s]`` score lattice with a ``pmax``

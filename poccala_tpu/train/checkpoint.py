@@ -7,13 +7,13 @@ and per-state ``GMM_<k>/{GMM_means,GMM_covariance,GMM_weight}.npy`` +
 the ``trainInfo_<job>.csv`` resume ledger (``AcousticModel.py:311-329``)
 — with:
 
-* a single checkpoint of the senone-bank pytree — ``.npz`` for
-  host-local single-process banks, **orbax** (sharded, optionally
-  async, multi-host-coordinated) whenever the bank is sharded over >1
-  device or ``jax.process_count() > 1``: every process writes only its
-  addressable shards, and :func:`load_checkpoint` can restore straight
-  onto a target sharding without materializing the full bank on any
-  host (BASELINE config 4/5 scale) — and
+* a single checkpoint of the senone-bank pytree — ``.npz`` whenever one
+  process drives every device (a bank sharded over the cards of one
+  host is fully addressable and is written from its gathered arrays),
+  and **orbax** only for multi-process runs (``jax.process_count() >
+  1``), where each process writes only its addressable shards and
+  :func:`load_checkpoint` can restore straight onto a target sharding
+  without materializing the full bank on any host — and
 * a JSON manifest carrying the training phase/round/mixture level, which
   subsumes the unit-granular trainInfo resume: bank updates are atomic
   per round, so resume restarts at the round boundary (SURVEY.md §5
@@ -44,21 +44,6 @@ _FIELDS = ("means", "log_var", "log_w", "log_A", "log_pi", "mix_counts",
 _DTYPES = {"mix_counts": np.int32, "senone_map": np.int32}
 
 
-def _is_multidevice(bank: SenoneBank) -> bool:
-    """True when any bank leaf is sharded across >1 device (or the run
-    is multi-host): the regime where a whole-bank ``.npz`` per process
-    would defeat the sharding."""
-    import jax
-
-    if jax.process_count() > 1:
-        return True
-    for f in _FIELDS:
-        a = getattr(bank, f)
-        if isinstance(a, jax.Array) and len(a.sharding.device_set) > 1:
-            return True
-    return False
-
-
 def _sync(name: str) -> None:
     import jax
 
@@ -75,9 +60,10 @@ def save_checkpoint(path: str, bank: SenoneBank, manifest: dict | None = None,
     """Write the bank + ``manifest.json`` under ``path``.
 
     :param sharded: force the orbax sharded format; default (None)
-        auto-selects it when the bank spans >1 device or the run is
-        multi-host — each process then writes only its addressable
-        shards.  ``False``/single-device writes a plain ``bank.npz``.
+        selects it only for multi-process runs — each process then
+        writes only its addressable shards.  Otherwise a plain
+        ``bank.npz`` (from the gathered arrays when the bank is sharded
+        over this process's devices).
     :param async_save: with the orbax format, return as soon as the
         on-device data is snapshotted and commit in a background thread
         (training continues during the write).
@@ -85,7 +71,7 @@ def save_checkpoint(path: str, bank: SenoneBank, manifest: dict | None = None,
     import jax
 
     if sharded is None:
-        sharded = _is_multidevice(bank)
+        sharded = jax.process_count() > 1
     proc0 = jax.process_index() == 0
     if proc0:
         os.makedirs(path, exist_ok=True)
@@ -179,9 +165,10 @@ def load_checkpoint(path: str, sharding=None) -> tuple[SenoneBank, dict]:
     """Load a checkpoint directory -> (bank, manifest).
 
     :param sharding: optional pytree-or-single ``jax.sharding.Sharding``
-        for the orbax format — leaves are restored **directly onto the
-        target sharding** (each process reads only the shards it will
-        hold; the full bank never materializes on one host).
+        — orbax leaves are restored **directly onto the target
+        sharding** (each process reads only the shards it will hold; the
+        full bank never materializes on one host); npz leaves are placed
+        onto it after loading.
     """
     manifest = {}
     man_path = os.path.join(path, "manifest.json")
@@ -213,8 +200,16 @@ def load_checkpoint(path: str, sharding=None) -> tuple[SenoneBank, dict]:
                 data = ckptr.restore(bank_dir)
         bank = SenoneBank(**{f: jnp.asarray(data[f]) for f in _FIELDS})
     elif os.path.exists(npz_path):
+        import jax
+
         data = np.load(npz_path)
-        bank = SenoneBank(**{f: jnp.asarray(data[f]) for f in _FIELDS})
+        if sharding is None:
+            bank = SenoneBank(**{f: jnp.asarray(data[f]) for f in _FIELDS})
+        else:
+            bank = SenoneBank(**{
+                f: jax.device_put(data[f], sharding[f] if isinstance(
+                    sharding, dict) else sharding)
+                for f in _FIELDS})
     else:
         raise ParameterFileError(f"no checkpoint at {path}")
     return bank, manifest

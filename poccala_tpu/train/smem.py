@@ -398,8 +398,8 @@ def _smem_propose(means, log_var, log_w, x, mask, ijk, keys, mix,
     """Program 2: vmapped proposal construction + evaluation + polish.
     Mirrors the serial ``smem_step`` math (merge ``Clustering.py:431-440``,
     split ``:442-467``, partial re-estimation ``:469-481``) with one-hot
-    matmul selects in place of point gathers (TPU rule: dynamic
-    minor-axis gathers scalarize)."""
+    matmul selects in place of point gathers (chosen for the previous
+    accelerator, where dynamic minor-axis gathers were slow)."""
     m_cap = means.shape[1]
 
     def one(mn, lv, lw, xx, mm, ijk_s, key):

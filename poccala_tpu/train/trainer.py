@@ -1,5 +1,5 @@
 """Training orchestration: the two schemes of the reference's
-``Task.auto`` (``Controller.py:161-202``), TPU-batched.
+``Task.auto`` (``Controller.py:161-202``), batched on the device.
 
 Scheme 1 (``Controller.py:167-173``, isolated-word style):
   1. init: uniform segmentation collects per-unit data

@@ -1,6 +1,6 @@
 """Log-domain math primitives.
 
-TPU-native replacement for the reference's scalar helpers in
+Batched replacement for the reference's scalar helpers in
 ``StatisticalModel/util.py:20-92``: ``log_sum_exp`` (scalar/rowwise Python
 loops), ``matrix_log_sum_exp`` (list folds) and ``gaussian_function``
 (per-vector diagonal Gaussian).  Everything here is batched, jittable and

@@ -2,7 +2,7 @@
 
 These are *independent reimplementations* of the algorithms in
 ``/root/reference`` (cited per function), written from the behavioral
-analysis in SURVEY.md, used as golden references for the TPU kernels.
+analysis in SURVEY.md, used as golden references for the device kernels.
 They intentionally reproduce the reference's numeric quirks.
 """
 
@@ -102,7 +102,7 @@ def mfcc_quirk(signal, rate=16000, nfft=512, dct_num=13, d1=True, d2=True,
                log_eps=0.0):
     """Full reference pipeline (AudioProcessing.py:416-448), quirks mode.
 
-    ``log_eps`` floors the filterbank output before the log (the TPU
+    ``log_eps`` floors the filterbank output before the log (the device
     pipeline floors at 1e-10 to avoid -inf; pass the same value when
     comparing)."""
     pe = pre_emphasis(signal)

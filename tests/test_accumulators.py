@@ -98,7 +98,9 @@ def oracle_stats(bank, label, x, state_num):
             if col < n_s and lc < state_num:
                 trans[u, local, lc] += ksai[r, col]
     return dict(occ=occ, c=c, cx=cx, cxx=cxx, trans=trans,
-                trans_den=trans_den, loglik=loglik)
+                trans_den=trans_den, loglik=loglik,
+                # the dense sentence model, for alignment oracles
+                scores=scores, A=Ad, prob=prob, pi=pi)
 
 
 class TestUtteranceStats:
@@ -163,7 +165,7 @@ class TestBaumWelchStep:
 
     def test_loglik_improves(self, rng):
         """Full E+M steps must increase total data log-likelihood (EM
-        monotonicity) — the TPU analog of baulm_welch's iterate-until-
+        monotonicity) — the batched analog of baulm_welch's iterate-until-
         converged loop (LHMM.py:526-544)."""
         cfg, bank = make_bank(rng, num_units=3, state_num=5, mix=2, max_mix=2, dim=5)
         batch = self.synth_batch(rng, bank, cfg)

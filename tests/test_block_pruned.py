@@ -1,7 +1,7 @@
 """Block-pruned device decode (``active_blocks``): permutation/padding
 invariants, exact-vs-pruned agreement, and config plumbing.
 
-The pruned search is the TPU form of the reference's beam pruning
+The pruned search is the block form of the reference's beam pruning
 (``/root/reference/Decoder.py:34,159-167`` — keep-fraction beam over
 live tokens): per frame only the K best-scoring blocks of DFS-contiguous
 nodes run the banded advance.  These tests pin (a) the device-table

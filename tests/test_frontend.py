@@ -57,7 +57,7 @@ class TestMfccParity:
         want = oracles.mfcc_quirk(sig.astype(np.float64), log_eps=1e-10)
         got = np.asarray(feats)
         assert got.shape == want.shape == (num_frames(16000, 400, 200), 39)
-        # fp32 TPU pipeline vs fp64 oracle over an FFT + 2 matmuls
+        # fp32 device pipeline vs fp64 oracle over an FFT + 2 matmuls
         assert np.allclose(got, want, rtol=2e-3, atol=2e-3)
 
     def test_padding_invariance(self):

@@ -93,3 +93,19 @@ class TestCorpusNativePath:
             assert np.array_equal(a.label_lens, b.label_lens)
             assert np.array_equal(a.t_masks, b.t_masks)
             assert np.allclose(a.feats, b.feats, atol=1e-4)
+
+
+class TestNativeBuildKey:
+    def test_library_keyed_on_source_hash(self):
+        """The built library's name carries a hash of ``wavio.cpp``, so
+        a library built from other source is never loaded."""
+        import hashlib
+        import os
+
+        with open(os.path.join(os.path.dirname(native.__file__),
+                               "wavio.cpp"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        path = native.lib_path()
+        assert os.path.basename(path) == f"libpoccala_native_{digest}.so"
+        assert native.available()
+        assert os.path.exists(path)

@@ -10,7 +10,7 @@ device/plot modules and drive the reference's own ``MFCC.mfcc`` /
 transcription error.
 
 Three-way parity per stage: reference code ↔ oracles.py (fp64,
-near-exact) and reference code ↔ TPU pipeline (fp32 tolerance).
+near-exact) and reference code ↔ device pipeline (fp32 tolerance).
 
 Skipped automatically when the reference tree is not present.
 """
@@ -113,8 +113,8 @@ class TestReferenceMfcc:
         assert got.shape == want.shape
         assert np.allclose(got, want, rtol=1e-9, atol=1e-9)
 
-    def test_tpu_frontend_matches_reference_code(self):
-        """The jitted TPU pipeline vs the executed reference pipeline."""
+    def test_device_frontend_matches_reference_code(self):
+        """The jitted device pipeline vs the executed reference pipeline."""
         sig = _nonzero_int16_signal(16000, seed=1)
         want = _reference_mfcc(sig)
         fe = Frontend(FrontendConfig(reference_quirks=True))
@@ -122,7 +122,7 @@ class TestReferenceMfcc:
         assert bool(np.asarray(mask).all())
         got = np.asarray(feats)
         assert got.shape == want.shape
-        # fp32 TPU pipeline (FFT + 2 matmuls) vs fp64 reference
+        # fp32 device pipeline (FFT + 2 matmuls) vs fp64 reference
         assert np.allclose(got, want, rtol=2e-3, atol=2e-3)
 
     def test_stagewise_parity(self):
@@ -171,7 +171,7 @@ class TestReferenceVad:
         mask = oracles.vad_keep_mask(feats)
         assert np.array_equal(feats[mask], kept_ref)
 
-    def test_tpu_vad_matches_reference_code(self):
+    def test_device_vad_matches_reference_code(self):
         sig = _nonzero_int16_signal(16000, seed=4)
         fe = Frontend(FrontendConfig(reference_quirks=True))
         feats, mask = fe.mfcc(sig.astype(np.float32))
